@@ -5,8 +5,7 @@ Launched by benchmarks/e2e_multiproc.py as
         <pid> <nprocs> <coordinator> <frames> <W> <H>
 
 One CPU device per process, disjoint physical cores (parent pins). The
-FULL pipeline runs distributed (VERDICT r4 item 6 — the r4 evidence was
-BA-kernel-only):
+FULL pipeline runs distributed:
 
   - detection: the frame batch shards over the process mesh
     (frontend.detect_batch_sharded) — the embarrassingly parallel axis;

@@ -1,7 +1,7 @@
-"""Contention-free END-TO-END multi-process scaling (VERDICT r4 item 6).
+"""Contention-free END-TO-END multi-process scaling on the host CPU.
 
-The r4 distributed evidence covered the BA kernel alone (86.4% at 2
-procs, SCALING_MULTIPROC.json); this harness times the FULL pipeline —
+benchmarks/scaling_multiproc.py covers the BA kernel alone; this harness
+times the FULL pipeline —
 sharded detection + (replicated) match/register + distributed windowed
 BA — on N processes pinned to disjoint physical cores, and reports
 frames/s efficiency vs the 1-process baseline (same per-worker core
@@ -10,8 +10,9 @@ the map the previous frame built), so the scalable fraction is
 detection + BA; the artifact reports the phase split so the Amdahl
 ceiling is auditable, plus result parity across process counts.
 
-Hard limit of this box: 2 physical cores -> at most 2 contention-free
-workers here; the harness runs unchanged on a bigger host.
+Workers are CPU processes (one CPU device each, JAX_PLATFORMS=cpu), so no
+worker ever opens a GPU: several JAX processes cannot share one card. The
+worker count is capped by the host's physical cores.
 
     python benchmarks/e2e_multiproc.py
 
@@ -36,8 +37,7 @@ PORT = 19713
 
 def run_config(nprocs: int, cores: list[int]):
     procs = []
-    env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")  # never a second process on a card
     for pid in range(nprocs):
         cmd = [
             "taskset", "-c", str(cores[pid]),

@@ -18,6 +18,10 @@ robust BA -> compact -> polish. The artifact reports TOTAL wall
     python benchmarks/large_scene.py            # 250 frames, 480x360
     LARGE_FRAMES=120 python benchmarks/large_scene.py
 
+The multi-process mode (LARGE_SHARDED=1 with LARGE_PROC_ID set, one
+process per worker) runs every worker on the CPU, so no second JAX
+process ever opens a GPU.
+
 Writes artifacts/LARGE_SCENE_r05.json and prints a JSON summary line.
 """
 
@@ -44,7 +48,7 @@ MAX_POINTS = int(os.environ.get("LARGE_MAX_POINTS", "131072"))
 # rounds run bundle_adjust_map_sharded, and registration + stitch
 # programs execute GSPMD-partitioned over the sharded grid. Intended on
 # the virtual CPU mesh (LARGE_DEVICES virtual devices) for correctness
-# vs the unsharded artifact; wall time is NOT comparable to TPU runs.
+# vs the unsharded artifact; wall time is NOT comparable to GPU runs.
 SHARDED = os.environ.get("LARGE_SHARDED", "0") == "1"
 N_DEVICES = int(os.environ.get("LARGE_DEVICES", "8"))
 # Attribution knobs (VERDICT r4 item 2, subtractive stubbing): disable
@@ -84,22 +88,22 @@ def chunk_pairs(pairs, batch):
 def main():
     import jax
 
-    if os.environ.get("JAX_PLATFORMS"):
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
+    from sfm_mvs_tpu.utils import cache
+
     # Sharded execution modes:
     #   in-process virtual mesh (LARGE_DEVICES devices) — fine for small
     #     probes, but XLA-CPU's IN-process collective rendezvous
-    #     deadlocks under this workload's long per-device programs on a
-    #     2-core box (device threads share one pool; observed 600 s+
-    #     stalls at an all-gather regardless of timeouts);
+    #     can deadlock under this workload's long per-device programs on
+    #     a host with few cores (device threads share one pool);
     #   multi-PROCESS via jax.distributed (LARGE_PROC_ID/LARGE_NPROCS/
     #     LARGE_COORD env, one device per process, launched by
     #     e.g. `taskset -c N python benchmarks/large_scene.py`) — the
-    #     cross-process collective path, proven by SCALING_MULTIPROC /
-    #     SCALING_E2E. Host logic runs replicated; process 0 writes the
-    #     artifact.
+    #     cross-process collective path of scaling_multiproc.py and
+    #     e2e_multiproc.py, on the CPU whatever JAX_PLATFORMS says. Host
+    #     logic runs replicated; process 0 writes the artifact.
     PID = int(os.environ.get("LARGE_PROC_ID", "-1"))
     if SHARDED and PID >= 0:
+        jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", 1)
         from sfm_mvs_tpu.parallel import multihost
 
@@ -110,6 +114,7 @@ def main():
     elif SHARDED:
         jax.config.update("jax_num_cpu_devices", N_DEVICES)
     is_main = PID <= 0
+    cache.enable()
     import dataclasses
 
     import jax.numpy as jnp

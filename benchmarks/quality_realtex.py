@@ -140,11 +140,9 @@ def our_frontend_stats(imgs, cfg):
 
 
 def main():
-    import jax
+    from sfm_mvs_tpu.utils import cache
 
-    if os.environ.get("JAX_PLATFORMS"):
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
+    cache.enable()
     from sfm_mvs_tpu.models.incremental import IncrementalSfM
     from sfm_mvs_tpu.models.refine import finalize_map
     from sfm_mvs_tpu.utils import evaluate

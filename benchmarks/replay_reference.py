@@ -36,6 +36,10 @@ def main():
     import jax
     import jax.numpy as jnp
 
+    from sfm_mvs_tpu.utils import cache
+
+    cache.enable()
+
     from sfm_mvs_tpu.models.incremental import IncrementalSfM
     from sfm_mvs_tpu.utils import evaluate
     from sfm_mvs_tpu.utils.config import (

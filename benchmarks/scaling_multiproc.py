@@ -1,20 +1,15 @@
-"""Contention-free distributed-BA scaling (VERDICT r3 item 4).
+"""Contention-free distributed-BA scaling on the host CPU.
 
-The r3 strong-scaling numbers came from a virtual 8-device mesh whose
-"devices" share the host's physical cores — the measured 0.073 efficiency
-was a contention artifact, not evidence about the design. This harness
+A virtual multi-device CPU mesh shares the host's physical cores, so its
+strong-scaling numbers measure contention, not the design. This harness
 removes the confound: N separate PROCESSES via jax.distributed, each with
 ONE cpu device, each pinned with `taskset -c` to a DISJOINT core, so each
-added worker adds real compute.
+added worker adds real compute. Workers run with JAX_PLATFORMS=cpu, so no
+worker ever opens a GPU (several JAX processes cannot share one card).
+The worker count is capped by the host's physical cores.
 
-Hard limit of this box: `nproc` = 2 physical cores, so the maximum
-contention-free worker count here is 2 (the >=4-worker request in the
-verdict is physically impossible on this machine — quantified in the
-artifact). The harness takes any worker counts that fit the core budget
-and runs unchanged on a bigger host.
-
-Also validates the analytic psum model term-by-term with a measured
-collective microbench (the r3 "31 KB/LM-iter" claim).
+Also checks the analytic psum model term by term with a measured
+collective microbench.
 
     python benchmarks/scaling_multiproc.py
 
@@ -41,8 +36,7 @@ PORT = 19311
 def run_config(nprocs: int, cores: list[int]):
     """Launch nprocs workers pinned to disjoint cores; return p0's JSON."""
     procs = []
-    env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")  # never a second process on a card
     for pid in range(nprocs):
         cmd = [
             "taskset", "-c", str(cores[pid]),

@@ -20,12 +20,13 @@ import numpy as np
 def main(out_dir: str = "/tmp/sfm_demo"):
     from sfm_mvs_tpu.models import mvs
     from sfm_mvs_tpu.models.incremental import IncrementalSfM
-    from sfm_mvs_tpu.utils import evaluate, io, metrics, viz
+    from sfm_mvs_tpu.utils import cache, evaluate, io, metrics, viz
     from sfm_mvs_tpu.utils.config import (
         BaConfig, FrontendConfig, MapConfig, SfmConfig,
     )
     from sfm_mvs_tpu.utils.synthetic import render_staircase_sequence
 
+    cache.enable()
     imgs, Rt_gt, K = render_staircase_sequence(
         num_cameras=10, arc_degrees=35, image_size=(480, 360), focal=600.0
     )

@@ -3,7 +3,7 @@
 // The reference delegates all host-side heavy lifting to OpenCV's C++
 // (cv2.imread at sfm.py:301, cv2.pyrDown at sfm.py:40) and writes its
 // point cloud through numpy's slow text path (sfm.py:197 np.savetxt).
-// This library provides the equivalent native layer for the TPU build:
+// This library provides the equivalent native layer for this build:
 //   - JPEG/PNG decode straight to float32 grayscale / BGR planes
 //     (libjpeg + libpng, no intermediate uint8 copies in Python),
 //   - Gaussian-pyramid downscale (5-tap binomial + 2x decimate, matching
@@ -14,7 +14,7 @@
 //
 // Exposed as a plain C ABI consumed via ctypes (sfm_mvs_tpu/native.py);
 // every call releases the GIL, so the Python-side prefetcher overlaps
-// decode with TPU compute.
+// decode with device compute.
 
 #include <cmath>
 #include <cstdint>

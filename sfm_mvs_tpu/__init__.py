@@ -1,6 +1,6 @@
-"""sfm_mvs_tpu — a TPU-native incremental Structure-from-Motion framework.
+"""sfm_mvs_tpu — an incremental Structure-from-Motion framework on JAX.
 
-Built from scratch on JAX/XLA/Pallas/pjit with the capabilities of the
+Built from scratch on JAX/XLA, run on an NVIDIA GPU, with the capabilities of the
 reference pipeline FlagArihant2000/sfm-mvs (see SURVEY.md): SIFT-style
 feature detection, brute-force KNN matching with Lowe-ratio filtering,
 essential-matrix RANSAC, SVD pose recovery, PnP camera registration, DLT
@@ -9,7 +9,7 @@ all as fixed-capacity, masked, batched, jit-compatible computations.
 
 Subpackages
 -----------
-ops       Geometry + vision kernels (pure jitted JAX / Pallas).
+ops       Geometry + vision kernels (pure jitted JAX).
 models    Pipeline state and drivers (two-view bootstrap, incremental SfM,
           track-based global SfM, bundle adjustment).
 parallel  Device-mesh sharding: data-parallel front end, distributed BA.
@@ -21,12 +21,12 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# Geometry code needs genuine float32 matmuls. TPU's default matmul
-# precision routes f32 through one bf16 MXU pass (8-bit mantissa), which
-# corrupts residuals/Jacobians enough to stall bundle adjustment (measured:
-# LM plateaus at ~1.4px^2 instead of 1e-9 on a noiseless problem) and
-# skews every pose solve. Hot kernels that tolerate bf16 (descriptor
-# distance matmuls) opt back in explicitly with `precision=` arguments.
+# Geometry code needs genuine float32 matmuls. On an NVIDIA GPU the
+# default precision runs f32 products in TF32, whose 10-bit mantissa
+# corrupts residuals/Jacobians enough to stall bundle adjustment (LM
+# plateaus far above a noiseless problem's zero cost, as it did with the
+# bf16 pass it was first set against) and skews every pose solve. Code
+# that tolerates less can ask for it with a `precision=` argument.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from sfm_mvs_tpu.utils.config import SfmConfig  # noqa: F401

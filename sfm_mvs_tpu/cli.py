@@ -16,6 +16,7 @@ with --checkpoint-every.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 import sys
 
@@ -24,7 +25,7 @@ import numpy as np
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="sfm_mvs_tpu", description="TPU-native incremental Structure-from-Motion"
+        prog="sfm_mvs_tpu", description="Incremental Structure-from-Motion on JAX"
     )
     p.add_argument("--image-dir", required=True, help="directory of ordered .jpg/.png")
     p.add_argument("--out", default="Point_Cloud", help="output directory")
@@ -41,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grad-sampling", choices=["nearest_polar", "bilinear"],
                    default="nearest_polar",
                    help="orientation/descriptor gradient sampling (nearest_polar "
-                        "is ~4x faster on TPU and matches OpenCV's per-pixel reads)")
+                        "needs a quarter of the gathers and matches OpenCV's "
+                        "per-pixel reads)")
     p.add_argument("--essential-threshold", type=float, default=2.0)
     p.add_argument("--essential-solver", choices=["8pt", "5pt"], default="8pt",
                    help="minimal E solver: 8-point or Nister 5-point "
@@ -78,10 +80,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "blocks are reported in the finalize info")
     p.add_argument("--batch-detect", type=int, default=0,
                    help="pre-detect features in vmapped batches of this size")
-    p.add_argument("--no-pallas-matcher", action="store_true",
-                   help="use the XLA matmul+top2 matcher instead of the "
-                        "fused Pallas 2-NN kernel (default on TPU: Pallas, "
-                        "measured 5x faster at 4096x4096x128)")
     p.add_argument("--no-merge", action="store_true",
                    help="disable re-observation track merging")
     p.add_argument("--finalize", action="store_true",
@@ -127,7 +125,6 @@ def config_from_args(args) -> "SfmConfig":
             lowe_ratio=args.lowe_ratio,
             contrast_threshold=args.contrast_threshold,
             upsample_input=not args.no_upsample,
-            use_pallas_matcher=not args.no_pallas_matcher,
             grad_sampling=args.grad_sampling,
         ),
         ransac=RansacConfig(
@@ -156,11 +153,17 @@ def config_from_args(args) -> "SfmConfig":
     )
 
 
+def _importable(*modules: str) -> bool:
+    return all(importlib.util.find_spec(m) is not None for m in modules)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
 
+    from sfm_mvs_tpu import native
     from sfm_mvs_tpu.models.incremental import IncrementalSfM
+    from sfm_mvs_tpu.utils import cache
     from sfm_mvs_tpu.utils import checkpoint as ckpt
     from sfm_mvs_tpu.utils import io, metrics, viz
 
@@ -170,6 +173,23 @@ def main(argv=None) -> int:
     if len(paths) < 2:
         print(f"need >= 2 images in {args.image_dir}", file=sys.stderr)
         return 2
+    # Decide before the reconstruction what the outputs can be.
+    if not native.available() and not _importable("PIL"):
+        print(
+            "cannot decode images: the native decoder is unavailable "
+            f"({native.build_error()}) and PIL is not installed",
+            file=sys.stderr,
+        )
+        return 2
+    write_plot = _importable("matplotlib")
+    write_gif = not args.no_gif and _importable("matplotlib", "PIL")
+    skipped = [] if write_plot else ["reproj_error.png"]
+    if not args.no_gif and not write_gif:
+        skipped.append("sfm.gif")
+    if skipped:
+        print(f"matplotlib/PIL not importable: will not write {', '.join(skipped)}",
+              file=sys.stderr)
+    cache.enable()
 
     print(f"loading {len(paths)} images (downscale={args.downscale}) ...")
     from sfm_mvs_tpu.native import ImageLoader
@@ -254,9 +274,10 @@ def main(argv=None) -> int:
     io.map_pose_csv(os.path.join(args.out, "pose.csv"), state)
     poses = np.asarray(state.poses)[np.asarray(state.cam_valid)]
     viz.save_camera_frusta_ply(os.path.join(args.out, "cameras.ply"), poses)
-    errs = [s.get("reproj_error", 0.0) for s in sfm.stats]
-    viz.save_error_plot(os.path.join(args.out, "reproj_error.png"), errs)
-    if not args.no_gif:
+    if write_plot:
+        errs = [s.get("reproj_error", 0.0) for s in sfm.stats]
+        viz.save_error_plot(os.path.join(args.out, "reproj_error.png"), errs)
+    if write_gif:
         pv = np.asarray(state.point_valid)
         viz.save_turntable_gif(
             os.path.join(args.out, "sfm.gif"),

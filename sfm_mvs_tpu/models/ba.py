@@ -2,7 +2,7 @@
 
 Replaces the reference's dense finite-difference `scipy.optimize.
 least_squares` BA (sfm.py:104-157; ~30s/frame per sfm.py:378) with the
-TPU-native design from SURVEY.md §2.2/§7:
+fixed-shape design from SURVEY.md §2.2/§7:
 
 - Parameterization per the reference notebook's sparse prototype (cameras
   as 6-dof axis-angle + translation, points 3-dof, observations FIXED) —
@@ -11,22 +11,18 @@ TPU-native design from SURVEY.md §2.2/§7:
 - The observation table is the map's DENSE (P, C) grid (map_store.py):
   residuals and their analytic (AD) Jacobians A (2x6 camera blocks) and
   B (2x3 point blocks) evaluate for every grid cell as pure vectorized
-  math — no gathers, no scatters, no sorting. (Earlier designs using
-  `segment_sum` or sorted windowed gathers measured 3.5-9.5s per BA call
-  on a v5e because TPU scatters serialize and element gathers are far
-  from streaming bandwidth; the dense grid runs the same math as dense
-  contractions.)
+  math — no gathers, no scatters, no sorting. (Designs using
+  `segment_sum` or sorted windowed gathers lost on an earlier target,
+  where scatters serialize; not measured on the GPU — ROADMAP R1.)
 - Gauss-Newton normal equations: U_c = sum_p A^T A, V_p = sum_c B^T B,
   W_{pc} = A^T B kept as the (P, C, 6, 3) grid. All contractions have
   tiny inner dims, so they are written as broadcasted elementwise math +
-  axis reductions (pure VPU, exact f32) rather than micro-matmul einsums
-  — the einsum forms both routed through bf16 MXU passes (stalling LM at
-  ~1px^2) and failed to compile at max_points=65536.
+  axis reductions (exact f32) rather than micro-matmul einsums, which
+  ran in reduced precision (stalling LM) and failed to compile at
+  max_points=65536.
 - Schur complement of the point blocks applied MATRIX-FREE: S = U - W
   V^-1 W^T is never materialized; S @ x is two dense reductions over
   the grid. Solved by block-Jacobi-preconditioned conjugate gradients.
-  Measured on v5e at (P=32768, C=64, 200K obs): 9ms per 8-iteration LM
-  solve — ~3000x the reference's ~30s/frame dense-TRF BA.
 - Classic LM accept/reject loop with multiplicative damping, as a
   `lax.while_loop` (jit-compatible, fixed max iterations).
 
@@ -34,8 +30,8 @@ Distribution: the grid shards by POINT blocks over the mesh (see
 parallel/distributed_ba.py). Per-point quantities (V, V^-1, point
 updates) are fully local; only the small per-camera blocks (U, g_c, and
 the (C, 6) CG vectors) are psum-reduced — the "per-device Schur
-elimination of local point blocks, reduced camera system aggregated over
-ICI" design of SURVEY.md §2.3.
+elimination of local point blocks, reduced camera system aggregated with
+collectives" design of SURVEY.md §2.3.
 
 Gauge: camera 0 is frozen (its Jacobian blocks are zeroed); the remaining
 scale gauge freedom is controlled by the LM damping.
@@ -362,9 +358,9 @@ def _lm_solve(prob: BAProblem, lam: jnp.ndarray, cg_iters: int,
 
     # Hessian blocks. The contraction dims are tiny (i=2 residual rows), so
     # every per-cell product is written as broadcasted elementwise math +
-    # axis reductions — pure VPU work, exact f32, and far simpler for the
-    # compiler than 4.2M-batch micro-matmuls (einsum forms failed to
-    # compile at max_points=65536 on v5e).
+    # axis reductions — exact f32, and far simpler for the compiler than
+    # 4.2M-batch micro-matmuls (einsum forms failed to compile at
+    # max_points=65536).
     def contract_i(X, Y):  # (P,C,2,a), (P,C,2,b) -> (P,C,a,b)
         return (
             X[:, :, 0, :, None] * Y[:, :, 0, None, :]

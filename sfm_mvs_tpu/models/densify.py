@@ -17,7 +17,7 @@ one-time finalize step run AFTER the trajectory is solved:
 - candidates that coincide with an existing map point (projected pixel
   distance + relative depth agreement in the new camera) extend that
   point's track instead of duplicating it; the duplicate test against the
-  full map runs as chunked MXU matmuls (no sparse gathers).
+  full map runs as chunked matmuls (no sparse gathers).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ def _nearest_map_point(uv_cand, uv_map, depth_map, valid_map):
     """Per-candidate nearest projected map point: (min_d2 (M,), depth (M,)).
 
     Chunked running-min over the point axis — each block is one
-    (M, B) distance matmul on the MXU; the full (M, P) matrix never
+    (M, B) distance matmul; the full (M, P) matrix never
     materializes (P can be 64k+).
     """
     P = uv_map.shape[0]

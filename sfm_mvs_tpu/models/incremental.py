@@ -1,6 +1,6 @@
 """Incremental SfM driver: bootstrap, then register-PnP-triangulate per frame.
 
-TPU-native equivalent of the reference's main loop (sfm.py:274-423). The
+JAX equivalent of the reference's main loop (sfm.py:274-423). The
 per-frame step (sfm.py:341-412) becomes ONE jitted function
 (:func:`register_frame`) over fixed-capacity masked state:
 

@@ -3,8 +3,8 @@
 Replaces the reference's ad-hoc per-frame Python state (`Xtot`/`colorstot`
 accumulated by np.vstack, sfm.py:284-285,387-395; the pts0/pts1/P1/P2
 sliding window, sfm.py:399-409; and the exact-float-coordinate data
-association of `common_points`, sfm.py:215-239) with the TPU idiom from
-SURVEY.md §7: every table has a static capacity and a validity mask, so
+association of `common_points`, sfm.py:215-239) with the static-shape
+idiom from SURVEY.md §7: every table has a static capacity and a validity mask, so
 the entire incremental pipeline is jit-able and shardable. Data
 association is by integer *track id* threaded through matching — each
 feature slot of the most recent frame remembers which 3D point it
@@ -14,9 +14,9 @@ float-equality matching is O(N*M) and fragile.
 Observation layout: a DENSE (max_points, max_cameras) grid — obs_uv[p, c]
 is point p's pixel observation in camera c, obs_mask[p, c] its validity.
 Each point is observed at most once per camera, so the grid is exact, and
-it makes bundle adjustment entirely gather/scatter-free on TPU: per-point
+it makes bundle adjustment entirely gather/scatter-free: per-point
 reductions are dense sums over the camera axis, per-camera reductions are
-dense contractions over the point axis (MXU), and the grid shards by
+dense contractions over the point axis, and the grid shards by
 point blocks across devices (per-point work fully local, only small
 camera blocks collectively reduced). Appends are one masked scatter per
 frame — outside every hot loop.

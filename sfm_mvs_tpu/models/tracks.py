@@ -1,4 +1,4 @@
-"""Track-based global SfM: the reference's test.py pipeline, TPU-native.
+"""Track-based global SfM: the reference's test.py pipeline, in JAX.
 
 Capability parity with the reference's experimental variant (SURVEY.md
 §3.4): per-adjacent-pair matching with homography estimation

@@ -1,6 +1,6 @@
 """Two-view bootstrap: the reconstruction's initialization.
 
-TPU-native equivalent of the reference's bootstrap block (sfm.py:300-325):
+JAX equivalent of the reference's bootstrap block (sfm.py:300-325):
 match features -> essential-matrix RANSAC -> pose recovery (SVD +
 cheirality) -> pose composition with the reference frame -> DLT
 triangulation -> reprojection audit -> (PnP re-registration is subsumed by

@@ -1,9 +1,10 @@
 """ctypes binding for the native host runtime (native/sfm_native.cc).
 
-Auto-builds the shared library on first import when a toolchain is
-present; every entry point has a pure-Python fallback so the package works
-without it. All native calls release the GIL, so the `ImageLoader`
-prefetcher genuinely overlaps decode with device compute.
+Auto-builds the shared library on first use when a toolchain is present;
+every entry point has a pure-Python fallback so the package works without
+it (image decode then needs PIL). `build_error()` says why the library is
+missing. All native calls release the GIL, so the `ImageLoader` prefetcher
+genuinely overlaps decode with device compute.
 """
 
 from __future__ import annotations
@@ -22,26 +23,36 @@ _SO_PATH = os.path.join(_HERE, "_native", "libsfm_native.so")
 _NATIVE_DIR = os.path.join(os.path.dirname(_HERE), "native")
 
 _lib = None
+_build_error = ""
 _lib_lock = threading.Lock()
 _f32p = ctypes.POINTER(ctypes.c_float)
 
 
 def _try_build() -> bool:
+    global _build_error
     makefile = os.path.join(_NATIVE_DIR, "Makefile")
     if not os.path.exists(makefile):
+        _build_error = f"{makefile} not found"
         return False
     try:
         subprocess.run(
             ["make", "-C", _NATIVE_DIR],
-            check=True, capture_output=True, timeout=120,
+            check=True, capture_output=True, text=True, timeout=120,
         )
-        return os.path.exists(_SO_PATH)
-    except Exception:
+    except subprocess.CalledProcessError as e:
+        _build_error = f"make failed (rc {e.returncode}): {e.stderr.strip()[-2000:]}"
         return False
+    except (OSError, subprocess.TimeoutExpired) as e:
+        _build_error = f"make could not run: {e}"
+        return False
+    if not os.path.exists(_SO_PATH):
+        _build_error = f"make succeeded but {_SO_PATH} is missing"
+        return False
+    return True
 
 
 def _load():
-    global _lib
+    global _lib, _build_error
     with _lib_lock:
         if _lib is not None:
             return _lib
@@ -50,7 +61,8 @@ def _load():
             return _lib
         try:
             lib = ctypes.CDLL(_SO_PATH)
-        except OSError:
+        except OSError as e:
+            _build_error = f"cannot load {_SO_PATH}: {e}"
             _lib = False
             return _lib
         lib.sn_image_size.argtypes = [
@@ -74,6 +86,12 @@ def _load():
 
 def available() -> bool:
     return bool(_load())
+
+
+def build_error() -> str:
+    """Why the native library is unavailable ("" when it loaded)."""
+    _load()
+    return _build_error
 
 
 def _ptr(a: np.ndarray):
@@ -171,7 +189,7 @@ def write_ply(
 class ImageLoader:
     """Threaded prefetching loader: decode (+ optional downscale) off the
     critical path. Native decode releases the GIL, so workers run truly
-    in parallel with TPU dispatch."""
+    in parallel with device dispatch."""
 
     def __init__(
         self,

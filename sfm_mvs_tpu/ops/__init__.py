@@ -1,6 +1,6 @@
 """Geometry and vision kernels: pure jitted JAX + Pallas.
 
-Every kernel here is the TPU-native replacement for a native (C++) OpenCV /
+Every kernel here is the JAX replacement for a native (C++) OpenCV /
 SciPy routine the reference delegates to (SURVEY.md §2.2). All functions are
 jit-compatible: static shapes, masked validity, no data-dependent Python
 control flow.

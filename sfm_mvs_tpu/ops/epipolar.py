@@ -1,6 +1,6 @@
 """Essential/fundamental matrix estimation and pose recovery.
 
-TPU-native replacement for ``cv2.findEssentialMat`` (sfm.py:307; the 5-point
+JAX replacement for ``cv2.findEssentialMat`` (sfm.py:307; the 5-point
 Nister solver inside OpenCV's RANSAC) and ``cv2.recoverPose`` (sfm.py:311).
 
 Design (SURVEY.md §7): the minimal solver is the normalized 8-point
@@ -38,7 +38,7 @@ def essential_eight_point(
     method: null-vector solver. "svd" of A directly is precise (forming
     the normal matrix squares the condition number and costs ~3 decimal
     digits in f32 — measured 1.3px vs 0.0005px max Sampson residual at
-    f=1200); "eigh" of A^T A is several times faster on TPU. RANSAC uses
+    f=1200); "eigh" of A^T A is cheaper. RANSAC uses
     "eigh" for its thousands of vmapped hypothesis solves (threshold-level
     precision suffices there) and "svd" for the few inlier refits.
 

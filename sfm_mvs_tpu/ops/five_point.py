@@ -1,4 +1,4 @@
-"""Nister 5-point minimal essential-matrix solver, TPU-native.
+"""Nister 5-point minimal essential-matrix solver, jit/vmap-native.
 
 The reference's ``cv2.findEssentialMat`` (sfm.py:307) runs OpenCV's Nister
 5-point solver inside sequential RANSAC. This module implements the same
@@ -6,7 +6,7 @@ algebra (Nister, "An efficient solution to the five-point relative pose
 problem", PAMI 2004) in a fully jit/vmap-compatible form so RANSAC can
 solve thousands of minimal samples simultaneously (ransac.py).
 
-TPU constraints shape the design:
+Accelerator constraints shape the design:
   * ``jnp.linalg.eig`` (nonsymmetric) is CPU-only in JAX, so the classic
     Stewenius 10x10 action-matrix eigendecomposition is unavailable. We
     follow Nister's original reduction instead: Gauss-Jordan elimination

@@ -1,6 +1,6 @@
 """Homography estimation (4-point DLT) + transfer error.
 
-TPU-native replacement for ``cv2.findHomography`` (test.py:259, used by the
+JAX replacement for ``cv2.findHomography`` (test.py:259, used by the
 track-based global-SfM variant to chain keypoints across frames). Fully
 vmappable: RANSAC runs batched hypothesis solves (see ransac.py).
 """

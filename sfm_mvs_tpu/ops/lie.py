@@ -1,6 +1,6 @@
 """SO(3) / SE(3) Lie-group operations: closed-form axis-angle exp/log maps.
 
-TPU-native replacement for ``cv2.Rodrigues`` (reference call sites:
+JAX replacement for ``cv2.Rodrigues`` (reference call sites:
 sfm.py:69,84,119; test.py:73,98,251,305,320). Everything is branch-free
 (``jnp.where`` with Taylor fallbacks near theta=0) so it is jit/vmap/grad
 safe, unlike the C++ routine it replaces.

@@ -1,10 +1,10 @@
 """Brute-force KNN descriptor matching with fused Lowe-ratio test.
 
-TPU-native replacement for ``cv2.BFMatcher.knnMatch(des0, des1, k=2)`` +
+JAX replacement for ``cv2.BFMatcher.knnMatch(des0, des1, k=2)`` +
 the Python ratio-filter loop (sfm.py:259-268). The all-pairs L2 distance
-matrix is computed as a single (N0, D) x (D, N1) matmul on the MXU
+matrix is computed as a single (N0, D) x (D, N1) matmul
 (`dist^2 = |a|^2 + |b|^2 - 2 a.b`), and the top-2 neighbor reduction +
-ratio test are fused elementwise ops XLA keeps on-chip. Output is a
+ratio test are fused elementwise ops and reductions. Output is a
 fixed-capacity match list (query_idx, train_idx, valid) — no dynamic
 shapes.
 
@@ -35,7 +35,8 @@ def distance_matrix(
 ) -> jnp.ndarray:
     """Squared L2 distances (N0, N1); invalid train columns get +inf.
 
-    The matmul runs in float32 on the MXU (`preferred_element_type`);
+    The matmul runs in float32 (`preferred_element_type`, at the
+    package's "highest" default precision — no TF32);
     SIFT descriptors are small-magnitude so f32 is exact enough for the
     ratio test.
     """
@@ -93,22 +94,7 @@ def knn_match(
 
 
 def match_with_config(desc0, desc1, valid0, valid1, cfg) -> "Matches":
-    """Dispatch to the Pallas fused kernel or the XLA path per config.
-
-    cfg: FrontendConfig. The Pallas kernel (matching_pallas.py) streams
-    train tiles through VMEM (the distance matrix never reaches HBM) and
-    is the DEFAULT on TPU: 0.089 ms at 4096x4096x128 on v5e (amortized
-    in-program timing, ~48 f32 Tflop/s — near MXU speed-of-light) vs
-    ~10x more for the XLA path's three HBM-sized traversals; results are
-    bitwise IDENTICAL to this XLA path (same distance expression and
-    rounding order, lowest-column tie-breaks). The XLA path serves CPU
-    tests, the mutual check, and --no-pallas-matcher.
-    """
-    on_tpu = jax.default_backend() == "tpu"
-    if getattr(cfg, "use_pallas_matcher", True) and not cfg.mutual_check and on_tpu:
-        from sfm_mvs_tpu.ops.matching_pallas import knn_match_pallas
-
-        return knn_match_pallas(desc0, desc1, valid0, valid1, ratio=cfg.lowe_ratio)
+    """knn_match with a FrontendConfig's ratio and mutual check."""
     return knn_match(
         desc0, desc1, valid0, valid1, ratio=cfg.lowe_ratio, mutual=cfg.mutual_check
     )

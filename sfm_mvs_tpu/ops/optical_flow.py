@@ -3,7 +3,7 @@
 The reference contains a disabled alternative front end built on
 ``cv2.calcOpticalFlowPyrLK`` (sfm.py:249-257, commented out) — track
 keypoints frame-to-frame instead of re-matching descriptors. This module
-supplies that capability TPU-natively: a coarse-to-fine pyramidal LK
+supplies that capability in fixed-shape JAX: a coarse-to-fine pyramidal LK
 tracker, vmapped over keypoints with fixed iteration counts.
 
 Design: per pyramid level, each keypoint iterates the classic LK normal

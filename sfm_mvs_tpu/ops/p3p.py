@@ -9,7 +9,7 @@ The reference's RANSAC resector is ``cv2.solvePnPRansac`` (sfm.py:67);
 OpenCV's RANSAC likewise draws minimal samples (its iterative model uses
 4+, P3P is its dedicated minimal solver family).
 
-TPU shape discipline mirrors ops/five_point.py: the quartic's real roots
+Static-shape discipline mirrors ops/five_point.py: the quartic's real roots
 are extracted with fixed-shape sign-change bracketing + bisection on a
 tan-spaced grid over v > 0 (depth ratios are positive), plus local-minimum
 slots for near-double roots; every slot carries a validity flag, and

@@ -1,6 +1,6 @@
 """Perspective-n-Point: DLT minimal solver + Gauss-Newton refinement.
 
-TPU-native replacement for ``cv2.solvePnPRansac(..., SOLVEPNP_ITERATIVE)``
+JAX replacement for ``cv2.solvePnPRansac(..., SOLVEPNP_ITERATIVE)``
 (sfm.py:67; test.py:319). The minimal solver is a 6-point DLT for the
 projection matrix on normalized image coordinates with 3D-point
 conditioning — fully vmappable so RANSAC runs thousands of hypotheses in
@@ -49,9 +49,9 @@ def pnp_dlt(
     )
     A = jnp.concatenate([row_u * w[:, None], row_v * w[:, None]], axis=0)
     if method == "inviter":
-        # Fastest null vector for vmapped RANSAC hypotheses: damped
-        # inverse iteration (ops/linalg.py; 9x faster than vmapped eigh
-        # on v5e). The GN polish restores full accuracy downstream.
+        # Cheapest null vector for vmapped RANSAC hypotheses: damped
+        # inverse iteration (ops/linalg.py). The GN polish restores full
+        # accuracy downstream.
         P = linalg.smallest_eigvec(A.T @ A).reshape(3, 4)
     elif method == "eigh":
         _, V = jnp.linalg.eigh(A.T @ A)

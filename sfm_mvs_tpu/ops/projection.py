@@ -1,6 +1,6 @@
 """Pinhole projection and homogeneous-coordinate kernels.
 
-TPU-native replacement for ``cv2.projectPoints`` (sfm.py:88,121),
+JAX replacement for ``cv2.projectPoints`` (sfm.py:88,121),
 ``cv2.convertPointsFromHomogeneous`` / ``ToHomogeneous`` (sfm.py:86,351;
 test.py:19,22) and the reference's mean-reprojection audit
 (``ReprojectionError``, sfm.py:79-100). All point arrays are fixed-capacity

@@ -1,6 +1,6 @@
 """Image pyramids: Gaussian blur, pyrDown, 2x upsample — as XLA convolutions.
 
-TPU-native replacement for ``cv2.pyrDown`` (sfm.py:40) and the Gaussian
+JAX replacement for ``cv2.pyrDown`` (sfm.py:40) and the Gaussian
 scale-space construction inside OpenCV's SIFT (sfm.py:247). All blurs are
 separable 1D convolutions so XLA maps them onto the conv/matmul units
 instead of a C++ scalar loop.
@@ -29,9 +29,9 @@ def _conv1d(img: jnp.ndarray, taps: np.ndarray, axis: int) -> jnp.ndarray:
     """Separable conv along one spatial axis with edge (replicate) padding.
 
     img: (H, W). Implemented as a tap-unrolled shift-and-accumulate over a
-    padded copy — pure streaming VPU math. (XLA's conv op with a single
-    channel cannot feed the MXU and measured ~60ms per blur at 1936x1296
-    on v5e; this form is bandwidth-bound instead.)
+    padded copy — pure streaming elementwise math, bandwidth-bound. (Chosen
+    over XLA's single-channel conv op on an earlier target; not measured
+    on the GPU.)
     """
     radius = len(taps) // 2
     pad = [(0, 0), (0, 0)]
@@ -87,8 +87,7 @@ def upsample2(img: jnp.ndarray) -> jnp.ndarray:
     """Bilinear 2x upsample (OpenCV SIFT's initial image doubling).
 
     Explicit interleave of (x[i], (x[i]+x[i+1])/2) per axis — slicing +
-    elementwise only. (jax.image.resize lowers to gathers and measured
-    177ms for a 1936x1296 output on v5e; this form is ~HBM-speed.)
+    elementwise only, where jax.image.resize lowers to gathers.
     Sample positions follow align_corners=False halves, matching the
     resize output to ~1px at the far border.
     """

@@ -2,7 +2,7 @@
 
 Replaces OpenCV's sequential C++ RANSAC loops (``cv2.findEssentialMat``
 sfm.py:307, ``cv2.solvePnPRansac`` sfm.py:67, ``cv2.findHomography``
-test.py:259) with the TPU idiom from SURVEY.md §7: draw ALL hypothesis
+test.py:259) with the batched idiom from SURVEY.md §7: draw ALL hypothesis
 minimal samples at once, ``vmap`` the minimal solver over the hypothesis
 batch, score every hypothesis against every correspondence as one dense
 masked computation, and ``argmax`` the inlier count. Fixed shapes

@@ -1,4 +1,4 @@
-"""SIFT-style feature detection and description, TPU-native.
+"""SIFT-style feature detection and description, in fixed-shape JAX.
 
 Replaces ``cv2.xfeatures2d.SIFT_create().detectAndCompute`` (sfm.py:246-252;
 isfm.py:46,60; test.py:196,210) — the reference's hottest native kernel —
@@ -12,7 +12,7 @@ with a fully batched JAX implementation:
   then a global top-K merge — no dynamic shapes anywhere.
 - Orientation assignment and the 4x4x8 gradient-histogram descriptor as
   batched bilinear gathers over precomputed per-octave gradient maps,
-  with histogram accumulation expressed as one-hot matmuls (MXU-friendly)
+  with histogram accumulation expressed as one-hot matmuls
   rather than scatters.
 
 The algorithm follows Lowe's SIFT (the published method OpenCV implements);
@@ -165,9 +165,8 @@ def _bilinear_gather(maps: jnp.ndarray, layer: jnp.ndarray, x: jnp.ndarray, y: j
     Returns (C, ...) samples.
 
     Per-corner flat element gathers. (A single blocked lax.gather pulling
-    the (2,2,C) corner/channel slice per sample was tried and measured
-    SLOWER end-to-end on v5e — 3.79 vs 4.71 frames/s in bench.py — TPU
-    lowers small-slice gathers worse than plain element gathers.)
+    the (2,2,C) corner/channel slice per sample was slower on an earlier
+    target; not measured on the GPU.)
     """
     C, L, H, W = maps.shape
     x = jnp.clip(x, 0.0, W - 1.001)
@@ -249,9 +248,8 @@ def make_grad_sampler(grads: jnp.ndarray, mode: str):
     """Returns sample(layer, sx, sy) -> (mag, ang) for window sampling.
 
     mode "nearest_polar": one element gather per sample from the packed
-    polar map — the TPU-fast path (gather cost on v5e scales with the
-    index count: 4-corner bilinear measured 29ms vs 8ms nearest per 1M
-    samples), and also *closer to OpenCV SIFT*, which reads per-pixel
+    polar map — a quarter of the gathers of "bilinear", and also
+    *closer to OpenCV SIFT*, which reads per-pixel
     gradients without interpolation. mode "bilinear": 4-corner
     interpolation of (dx, dy), kept for comparison/validation.
     """
@@ -293,7 +291,7 @@ def _orientation(sample, layer, x, y, sigma_oct):
     ) ** 2
     w = jnp.exp(-r2 / (2.0 * (1.5 * sigma_oct[:, None]) ** 2)) * mag
     # 36-bin histogram with linear two-tap binning. Computed as an unrolled
-    # loop over bins (36 masked (K, S) reductions) — pure VPU elementwise +
+    # loop over bins (36 masked (K, S) reductions) — pure elementwise +
     # reduce, no scatters and no (K, S, 36) one-hot materialization.
     bin_f = ang * (_ORI_BINS / (2.0 * jnp.pi))
     b0 = jnp.floor(bin_f).astype(jnp.int32) % _ORI_BINS
@@ -375,7 +373,7 @@ def _descriptor(sample, layer, x, y, sigma_oct, angle, cfg: FrontendConfig):
     # Trilinear soft-assign. Key structural fact: the sample grid is STATIC
     # in bin units (same for every keypoint), so the spatial (4x4) binning
     # is a fixed (S, 16) matrix — a host-side numpy constant — and the
-    # whole spatial accumulation becomes one MXU matmul. Only the
+    # whole spatial accumulation becomes one matmul. Only the
     # orientation axis (8 bins) is data-dependent; it is expanded as a
     # small (K, S, 8) two-tap weight tensor (33MB at full capacity).
     cbx = bx_np.reshape(-1) + d / 2.0 - 0.5  # (S,) host-side
@@ -406,7 +404,7 @@ def _descriptor(sample, layer, x, y, sigma_oct, angle, cfg: FrontendConfig):
             jnp.where(i0o == o, w * (1.0 - fo), 0.0) + jnp.where(b1o == o, w * fo, 0.0)
         )
     V = jnp.stack(otaps, axis=-1)  # (K, S, nb) orientation-binned weights
-    # Spatial contraction on the MXU: (K, S, nb) x (S, 16) -> (K, 16, nb).
+    # Spatial contraction as a matmul: (K, S, nb) x (S, 16) -> (K, 16, nb).
     acc = jnp.einsum("kso,sp->kpo", V, spatial)
     desc = acc.reshape(w.shape[0], d * d * nb)
     # Normalize -> clip 0.2 -> renormalize (Lowe's illumination robustness).
@@ -441,8 +439,8 @@ def detect_and_compute(image: jnp.ndarray, cfg: FrontendConfig) -> Features:
     concatenated flat polar-gradient buffer spanning all octaves
     (per-keypoint base/stride arithmetic), secondary-orientation
     duplicates re-merge through a second top-K, and descriptors sample
-    once for the final K. Gather cost on TPU scales with the index count,
-    so candidates that would lose the top-K never pay for window sampling.
+    once for the final K. Gather cost scales with the index count, so
+    candidates that would lose the top-K never pay for window sampling.
     The two-stage merge selects the same set as ranking all (primary,
     secondary) entries jointly: a keypoint whose primary misses stage 1
     is outranked by Kf primaries, so none of its entries can reach the
@@ -486,16 +484,9 @@ def detect_and_compute(image: jnp.ndarray, cfg: FrontendConfig) -> Features:
         else:
             sampler = make_grad_sampler(grads, cfg.grad_sampling)
 
-        # Top-K candidates in this octave (approx_max_k: hardware-bucketed
-        # top-k, ~5x faster than exact over megapixel response maps).
+        # Top-K candidates in this octave.
         Ko = budgets[o]
-        flat_resp = response.reshape(-1)
-        if cfg.approx_topk:
-            top_resp, top_idx = jax.lax.approx_max_k(
-                flat_resp, Ko, recall_target=0.95
-            )
-        else:
-            top_resp, top_idx = jax.lax.top_k(flat_resp, Ko)
+        top_resp, top_idx = jax.lax.top_k(response.reshape(-1), Ko)
         lay = top_idx // (h * w)
         rem = top_idx % (h * w)
         iy = rem // w

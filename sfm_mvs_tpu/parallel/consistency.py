@@ -5,8 +5,8 @@ a sharded/multi-host run the invariant that CAN break is replication:
 camera state is supposed to be identical on every device after a
 distributed-BA step (every reduction is psum'd before use). These helpers
 checksum per-device replicas and assert they agree — cheap enough to run
-every BA call in debug mode, and the cross-host variant works over DCN
-via process-level allgather.
+every BA call in debug mode, and the cross-host variant works across
+processes via a process-level allgather.
 """
 
 from __future__ import annotations

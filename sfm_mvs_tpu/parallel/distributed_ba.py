@@ -5,7 +5,7 @@ POINT BLOCKS across the mesh (the 'sequence axis' of this domain,
 SURVEY.md §5); camera state is replicated. Each device eliminates its own
 point blocks entirely locally (V, V^-1, point back-substitution never
 leave the device); only the small reduced camera system — (C,6,6) Hessian
-blocks, (C,6) gradients and CG products — is psum-aggregated over ICI.
+blocks, (C,6) gradients and CG products — is psum-aggregated.
 That is exactly the "per-device Schur elimination of local point blocks,
 reduced camera blocks aggregated with collectives" design of SURVEY.md
 §2.3. The LM trajectory is identical to the single-device solve —

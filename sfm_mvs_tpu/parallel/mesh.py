@@ -17,7 +17,8 @@ def make_mesh(
     """Build a Mesh over the available devices.
 
     Default: 1-D 'data' mesh over all devices. Multi-host setups pass an
-    explicit shape (e.g. (hosts, chips_per_host) with ('dcn', 'ici')).
+    explicit shape (e.g. (hosts, devices_per_host) with ('dcn', 'ici'),
+    as parallel/multihost.slice_mesh builds).
     """
     devs = list(devices if devices is not None else jax.devices())
     if shape is None:

@@ -1,17 +1,18 @@
-"""Multi-host runtime: jax.distributed initialization + 2-D (DCN, ICI) mesh.
+"""Multi-host runtime: jax.distributed initialization + 2-D process mesh.
 
-The reference has no distributed runtime at all (SURVEY.md §2.3). On a
-multi-host TPU slice this module initializes `jax.distributed`, builds a
-(hosts, chips_per_host) mesh whose inner axis rides ICI and outer axis
-DCN, and provides the sharding placements the rest of the framework uses:
+The reference has no distributed runtime at all (SURVEY.md §2.3). Across
+several hosts (or several processes) this module initializes
+`jax.distributed`, builds a (processes, local_devices) mesh, and provides
+the sharding placements the rest of the framework uses. The axis names
+are "dcn" for the outer, between-process axis and "ici" for the inner,
+within-process axis (on GPUs: the cards of one host, joined by NVLink):
 
 - the front end shards frames over BOTH axes (pure data parallelism —
-  collectives-free, so DCN latency is irrelevant);
-- distributed BA shards point blocks over the ICI axis (its per-CG-step
-  psum of the (C,6,6) camera blocks stays intra-slice) and replicates over
-  DCN hosts, which only exchange once per LM iteration via the cheap
-  cost/accept scalars — the layout that keeps collectives off DCN per the
-  scaling-book recipe.
+  collectives-free, so the slower between-host link does not matter);
+- distributed BA shards point blocks over the inner axis (its per-CG-step
+  psum of the (C,6,6) camera blocks stays within a host) and replicates
+  over the outer axis, whose processes only exchange once per LM
+  iteration via the cheap cost/accept scalars.
 
 Single-host processes degrade gracefully: `initialize()` is a no-op when
 no coordinator is configured, and the mesh collapses to 1-D.
@@ -57,7 +58,8 @@ def initialize(
 def slice_mesh(
     ici_axis: str = "ici", dcn_axis: str = "dcn"
 ) -> Mesh:
-    """(hosts, chips_per_host) mesh: outer axis crosses DCN, inner rides ICI."""
+    """(processes, devices_per_process) mesh: outer axis between processes,
+    inner axis within one."""
     devices = jax.devices()
     n_proc = jax.process_count()
     per_host = len(devices) // max(n_proc, 1)
@@ -68,7 +70,8 @@ def slice_mesh(
 def ba_shardings(mesh: Mesh, ici_axis: str = "ici"):
     """Placements for distributed BA on a slice mesh.
 
-    Point-axis arrays shard over ICI (and replicate over DCN); camera
+    Point-axis arrays shard over the inner axis (and replicate over the
+    outer one); camera
     state replicates everywhere. Use with
     distributed_ba.run_ba_sharded(axis=ici_axis).
     """

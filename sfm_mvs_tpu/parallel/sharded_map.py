@@ -17,7 +17,7 @@ tiny collectives:
   (models/incremental.py step 2).
 - :func:`nearest_projected_sharded` — for query pixels, the nearest
   *projected* valid map point (squared pixel distance + its depth). Each
-  device scans only its block with the same MXU distance-matmul the
+  device scans only its block with the same distance matmul the
   single-device dedup uses (models/densify.py), then an all_gather of the
   per-block minima (S x M scalars — bytes, not megabytes) finishes the
   argmin. This is the sharded form of the re-observation merge /

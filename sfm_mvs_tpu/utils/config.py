@@ -6,7 +6,7 @@ sfm.py:30, bundle_adjustment sfm.py:33, Lowe ratio sfm.py:264, RANSAC params
 sfm.py:307, gtol sfm.py:337; README.md:12 says "edit Line 30"). Here every
 tunable is a dataclass field with a CLI flag (see cli.py).
 
-Capacity fields deserve a note: TPU/XLA requires static shapes, so feature
+Capacity fields deserve a note: XLA requires static shapes, so feature
 counts, match counts and map sizes are fixed capacities with validity masks
 (SURVEY.md §7 "fixed-capacity, masked, batched state"). Defaults are sized
 for the reference's Gustav sequence (57 images at 968x648).
@@ -37,25 +37,10 @@ class FrontendConfig:
     # Gradient sampling for orientation/descriptor windows.
     # "nearest_polar": ONE element gather per sample from a u32-packed
     #   (bf16 magnitude | bf16 angle) polar-gradient map — matches OpenCV
-    #   SIFT's per-pixel (uninterpolated) gradient use and is ~4x faster
-    #   on TPU, where gather cost scales with the index count (measured
-    #   29ms -> 8ms per 1M samples on v5e).
+    #   SIFT's per-pixel (uninterpolated) gradient use and needs a quarter
+    #   of the gathers of "bilinear".
     # "bilinear": 4-corner bilinear interpolation of (dx, dy) maps.
     grad_sampling: str = "nearest_polar"
-    # Per-octave candidate selection via lax.approx_max_k (TPU-accelerated
-    # bucketed top-k: measured 3.6ms vs 17.3ms exact over the 7.5M-element
-    # octave-0 response map, ~98% recall of kept keypoints — the ~2% lost
-    # are random bin collisions, immaterial to downstream matching).
-    # CAVEAT: approx_max_k falls back to EXACT top_k on CPU, so the CPU
-    # test suite never exercises the approximate path; recall at new image
-    # sizes/budgets must be checked on TPU (benchmarks/quality.py runs the
-    # matrix with approx_topk both on and off for this).
-    approx_topk: bool = True
-    # Matching. The fused VMEM-streaming 2-NN Pallas kernel is the default
-    # on TPU: 7.2ms vs 36.4ms for the XLA matmul+top2 path at
-    # 4096x4096x128 on v5e (chained-dispatch timing, 100% agreement with
-    # the XLA path on real descriptors). CPU (tests) always uses XLA.
-    use_pallas_matcher: bool = True
     lowe_ratio: float = 0.70  # sfm.py:264
     mutual_check: bool = False  # reference BFMatcher.knnMatch is one-directional
     max_matches: int = 4096  # fixed capacity

@@ -3,7 +3,7 @@
 The reference's only observability is a tqdm bar (sfm.py:341; SURVEY.md
 §5). Here any pipeline section can be wrapped in a Perfetto/XProf trace
 for kernel-level analysis, and hot kernels can be summarized against the
-chip's peak numbers.
+device's peak numbers.
 """
 
 from __future__ import annotations
@@ -13,9 +13,14 @@ import os
 import time
 from typing import Iterator, Optional
 
-# v5e per-chip peaks (public numbers) for quick roofline ratios.
+# Per-device peaks keyed by JAX's `device_kind`, dense (no sparsity):
+# NVIDIA H100 SXM data sheet. "f32_tflops" is float32 outside the tensor
+# cores, the rate that matmuls at "highest" precision get.
 PEAKS = {
-    "v5e": {"bf16_tflops": 394.0, "f32_tflops": 98.0, "hbm_gbps": 819.0},
+    "NVIDIA H100 80GB HBM3": {
+        "bf16_tflops": 989.0, "tf32_tflops": 495.0, "f32_tflops": 67.0,
+        "hbm_gbps": 3350.0,
+    },
 }
 
 
@@ -48,17 +53,23 @@ def annotate(name: str) -> Iterator[None]:
 
 
 class Roofline:
-    """Accumulate (flops, bytes, seconds) per kernel and report ratios."""
+    """Accumulate (flops, bytes, seconds) per kernel and report ratios.
 
-    def __init__(self, chip: str = "v5e"):
-        self.chip = PEAKS.get(chip, PEAKS["v5e"])
+    device_kind: a key of PEAKS (`jax.devices()[0].device_kind`); a
+    device with no published peaks raises instead of borrowing another's.
+    """
+
+    def __init__(self, device_kind: str):
+        if device_kind not in PEAKS:
+            raise KeyError(f"no peak rates for device kind {device_kind!r}")
+        self.chip = PEAKS[device_kind]
         self.rows: list[dict] = []
 
     def record(self, name: str, seconds: float, flops: float = 0.0, bytes_: float = 0.0):
         row = {"name": name, "ms": seconds * 1e3}
         if flops:
             row["achieved_tflops"] = flops / seconds / 1e12
-            row["mxu_fraction"] = row["achieved_tflops"] / self.chip["f32_tflops"]
+            row["f32_fraction"] = row["achieved_tflops"] / self.chip["f32_tflops"]
         if bytes_:
             row["achieved_gbps"] = bytes_ / seconds / 1e9
             row["hbm_fraction"] = row["achieved_gbps"] / self.chip["hbm_gbps"]

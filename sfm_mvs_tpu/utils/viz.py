@@ -1,6 +1,6 @@
 """Headless visualization artifacts: overlays, frusta, error plots.
 
-TPU hosts have no GUI; the reference's live `cv2.imshow` window and
+Accelerator hosts have no GUI; the reference's live `cv2.imshow` window and
 matplotlib scatter (sfm.py:274,401-402,410; SURVEY.md §5) become written
 artifacts: keypoint/reprojection overlays as PNGs (the reference's
 `Draw_points`, sfm.py:160-166), camera frusta as PLY meshes (the

@@ -24,9 +24,12 @@ def image_dir(tmp_path_factory):
 
 
 @pytest.mark.slow
-def test_cli_end_to_end(tmp_path, image_dir):
+def test_cli_end_to_end(tmp_path, image_dir, monkeypatch):
     d, Rt, K = image_dir
     from sfm_mvs_tpu import cli
+    from sfm_mvs_tpu.utils import cache
+
+    monkeypatch.setattr(cache, "enable", lambda: None)  # tests keep it off
 
     out = str(tmp_path / "out")
     rc = cli.main(
@@ -54,6 +57,25 @@ def test_cli_end_to_end(tmp_path, image_dir):
     assert len(vals) == 9 + 4 * 12
     # checkpoints were written
     assert os.listdir(f"{out}/checkpoints")
+
+
+def test_cli_stops_before_reconstruction_without_decoder(
+    tmp_path, image_dir, monkeypatch, capsys
+):
+    """No native decoder and no PIL: exit 2 with the build error, before
+    any reconstruction work."""
+    from sfm_mvs_tpu import cli, native
+    from sfm_mvs_tpu.models import incremental
+
+    monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(native, "build_error", lambda: "make failed (rc 2): no g++")
+    monkeypatch.setattr(cli, "_importable", lambda *m: False)
+    monkeypatch.setattr(incremental, "IncrementalSfM", None)  # must not be used
+    rc = cli.main(["--image-dir", image_dir[0], "--out", str(tmp_path / "o")])
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert "make failed (rc 2): no g++" in err and "PIL" in err
+    assert not (tmp_path / "o").exists()
 
 
 def test_checkpoint_roundtrip(tmp_path, image_dir):

@@ -1,6 +1,6 @@
 """Nister 5-point minimal solver (ops/five_point.py).
 
-Validates the TPU-native reimplementation of the solver inside the
+Validates the JAX reimplementation of the solver inside the
 reference's ``cv2.findEssentialMat`` (sfm.py:307): algebraic exactness on
 minimal samples, identifiability against extra correspondences, planar
 non-degeneracy (where 8-point fails structurally), RANSAC integration,

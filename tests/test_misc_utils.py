@@ -1,6 +1,7 @@
 """Coverage for profiling + multihost helper modules."""
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -22,14 +23,21 @@ def test_slice_mesh_single_process():
 
 
 def test_roofline_record():
-    r = profiling.Roofline("v5e")
+    r = profiling.Roofline("NVIDIA H100 80GB HBM3")
     row = r.record("matmul", seconds=0.001, flops=1e9, bytes_=1e6)
     assert abs(row["achieved_tflops"] - 1.0) < 1e-9
-    assert 0 < row["mxu_fraction"] < 1
+    assert 0 < row["f32_fraction"] < 1
+    assert 0 < row["hbm_fraction"] < 1
     row2 = r.time_and_record(
         "add", lambda x: x + 1, jnp.ones(128), flops=128, iters=2
     )
     assert row2["ms"] > 0
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", ""])
+def test_roofline_unknown_device_kind_raises(kind):
+    with pytest.raises(KeyError):
+        profiling.Roofline(kind)
 
 
 def test_trace_annotation_contexts(tmp_path):
