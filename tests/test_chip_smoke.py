@@ -1,17 +1,14 @@
-"""chip_smoke.py: its device guard and its float64 matcher reference."""
+"""chip_smoke.py: its device guard. Its float64 matcher reference is
+tested in test_matching_reference.py."""
 
 import os
 import shutil
 import subprocess
 import sys
 
-import numpy as np
 import pytest
 
-import jax.numpy as jnp
-
 import chip_smoke
-from sfm_mvs_tpu.ops import matching
 
 
 @pytest.mark.parametrize("argv", [[], ["--cards", "4"]])
@@ -36,18 +33,3 @@ def test_fails_without_the_package(tmp_path):
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
 
-
-def test_reference_match_agrees_with_xla(rng):
-    d0 = rng.random((200, 128)).astype(np.float32)
-    d0 /= np.linalg.norm(d0, axis=1, keepdims=True)
-    d1 = d0[rng.permutation(200)] + 0.01 * rng.standard_normal((200, 128)).astype(np.float32)
-    v0 = np.arange(200) < 180
-    v1 = np.arange(200) % 7 != 0
-    idx, valid, margin = chip_smoke.reference_match(d0, d1, v0, v1, 0.7)
-    got = matching.knn_match(
-        jnp.asarray(d0), jnp.asarray(d1), jnp.asarray(v0), jnp.asarray(v1), ratio=0.7
-    )
-    np.testing.assert_array_equal(np.asarray(got.valid), valid)
-    np.testing.assert_array_equal(np.asarray(got.idx1)[valid], idx[valid])
-    assert valid.sum() > 100 and not valid[180:].any()
-    assert (margin[valid] > 0).all()

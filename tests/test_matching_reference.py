@@ -1,10 +1,12 @@
-"""XLA 2-NN matcher (ops/matching.py) against a float64 NumPy brute force."""
+"""XLA 2-NN matcher (ops/matching.py) against chip_smoke.py's float64
+NumPy brute force, the reference its matcher phase compares with."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
+from chip_smoke import reference_match
 from sfm_mvs_tpu.ops import matching
 from sfm_mvs_tpu.utils.config import FrontendConfig
 
@@ -12,18 +14,6 @@ from sfm_mvs_tpu.utils.config import FrontendConfig
 def _descs(rng, n, d=128):
     x = rng.random((n, d)).astype(np.float32)
     return x / np.linalg.norm(x, axis=1, keepdims=True)
-
-
-def _brute_force(d0, d1, v0, v1, ratio):
-    """float64 k=2 search + ratio test: (idx1, valid)."""
-    a, b = d0.astype(np.float64), d1.astype(np.float64)
-    d2 = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
-    d2[:, ~v1] = np.inf
-    order = np.argsort(d2, axis=1, kind="stable")
-    rows = np.arange(len(a))
-    best, second = d2[rows, order[:, 0]], d2[rows, order[:, 1]]
-    valid = v0 & np.isfinite(best) & (best < ratio * ratio * second)
-    return order[:, 0], valid
 
 
 def _case(name, rng):
@@ -41,6 +31,10 @@ def _case(name, rng):
         d0 = _descs(rng, 64)
         d1 = np.vstack([d0[:32], d0[:32]]).astype(np.float32)
         v0, v1, ratio = np.arange(64) < 40, np.arange(64) < 32, 0.7
+    elif name == "sparse-masks":  # invalid queries at the end, every 7th column
+        d0 = _descs(rng, 200)
+        d1 = d0[rng.permutation(200)] + 0.01 * rng.standard_normal((200, 128)).astype(np.float32)
+        v0, v1, ratio = np.arange(200) < 180, np.arange(200) % 7 != 0, 0.7
     else:  # "config": the pipeline's entry point with a FrontendConfig
         d0 = _descs(rng, 64)
         d1 = d0 + 0.01 * rng.standard_normal((64, 128)).astype(np.float32)
@@ -56,11 +50,13 @@ def _case(name, rng):
     return d0, d1, v0, v1, ratio, run
 
 
-@pytest.mark.parametrize("name", ["reference", "ragged", "masks", "config"])
+@pytest.mark.parametrize(
+    "name", ["reference", "ragged", "masks", "sparse-masks", "config"]
+)
 def test_knn_match_agrees_with_float64_brute_force(name, rng):
     d0, d1, v0, v1, ratio, run = _case(name, rng)
     m = run()
-    idx_ref, valid_ref = _brute_force(d0, d1, v0, v1, ratio)
+    idx_ref, valid_ref, margin = reference_match(d0, d1, v0, v1, ratio)
     valid = np.asarray(m.valid)
     np.testing.assert_array_equal(valid, valid_ref)
     np.testing.assert_array_equal(np.asarray(m.idx1)[valid], idx_ref[valid])
@@ -72,5 +68,8 @@ def test_knn_match_agrees_with_float64_brute_force(name, rng):
     elif name == "masks":
         assert not valid[40:].any() and valid[:32].all()
         assert (np.asarray(m.idx1)[:32] == np.arange(32)).all()
+    elif name == "sparse-masks":
+        assert valid.sum() > 100 and not valid[180:].any()
+        assert (margin[valid] > 0).all()
     else:
         assert valid.sum() > 50
